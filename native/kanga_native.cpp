@@ -1,15 +1,15 @@
-// Native host runtime for biokanga_tpu.
+// Native host runtime for biokanga.
 //
 // The reference's runtime is all C++ (CFasta parsing, CMTqsort suffix
 // sorting — libbiokanga/Fasta.cpp, MTqsort.cpp); these are the host-side
-// hot paths around the TPU compute. This library provides:
+// hot paths around the device compute. This library provides:
 //   - base-code translation and FASTQ block parsing (input pipeline)
 //   - threaded 32-base-key construction + parallel sample-sort of the
 //     bounded suffix array (index build; replaces numpy lexsort)
 // C ABI, loaded via ctypes (no pybind11 in the image).
 //
-// Build: g++ -O3 -march=native -shared -fPIC -std=c++17 -pthread \
-//        kanga_native.cpp -o libkanga_native.so
+// Build: biokanga/utils/native.py compiles this file at first use into
+// build/ (g++ -O3 -shared -fPIC -std=c++17 -pthread).
 
 #include <algorithm>
 #include <atomic>

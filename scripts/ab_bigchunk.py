@@ -1,11 +1,9 @@
 """A/B: big-genome sweep rate vs chunk size (VERDICT r3 item 4).
 
-Round-4 probe result (PERF.md): random 64 B row gathers run at
-~145 M rows/s from tables <= 112 MB (XLA stages the operand in the
-v5e's 128 MiB VMEM) and fall to ~43 M rows/s at >= 128 MB.  The 256 Mbp
-default chunk puts the packed-row table (125 MB) just past the cliff;
-smaller chunks pull it (and with lut_bases=12 the LUT too) back into
-the fast regime at the cost of more chunk cycles.
+Random 64 B row gathers slow down once the table outgrows the device's
+on-chip caches; the 256 Mbp default chunk puts the packed-row table at
+125 MB.  Smaller chunks shrink it (and with lut_bases=12 the LUT too)
+at the cost of more chunk cycles.
 
 Aligns the SAME 32k x 100 bp readset against the SAME 250 Mbp genome
 through the real two_level_chunk_sweep at several (max_chunk, lut_bases)
@@ -35,12 +33,12 @@ def main():
     ap.add_argument("--reads", type=int, default=32768)
     args = ap.parse_args()
 
-    from biokanga_tpu.align.params import AlignParams
-    from biokanga_tpu.align.pipeline import pad_rows
-    from biokanga_tpu.index.device_build import DeviceBuildChunkedAligner
-    from biokanga_tpu.parallel.chunked import two_level_chunk_sweep
-    from biokanga_tpu.sim.simreads import simulate_reads
-    from biokanga_tpu.utils.jaxcache import enable_persistent_cache
+    from biokanga.align.params import AlignParams
+    from biokanga.align.pipeline import pad_rows
+    from biokanga.index.device_build import DeviceBuildChunkedAligner
+    from biokanga.parallel.chunked import two_level_chunk_sweep
+    from biokanga.sim.simreads import simulate_reads
+    from biokanga.utils.jaxcache import enable_persistent_cache
 
     enable_persistent_cache()
     n = int(args.mbp * 1e6)

@@ -1,7 +1,7 @@
 """Big-genome benchmark: align reads vs a >=1 Gbp genome on ONE chip.
 
 The VERDICT round-1 'break the 2^31 wall' done-criterion: a >=1 Gbp genome
-aligned on the real TPU via genome-range chunk cycling with device-side
+aligned on the device via genome-range chunk cycling with device-side
 index builds (index/device_build.py).  Prints one JSON line.
 
 Usage: python scripts/bench_1gbp.py [--gbp 1.0] [--reads 262144]
@@ -32,10 +32,10 @@ def main() -> None:
 
     import jax
 
-    from biokanga_tpu.align.params import AlignParams
-    from biokanga_tpu.index.device_build import DeviceBuildChunkedAligner
-    from biokanga_tpu.sim.simreads import simulate_reads
-    from biokanga_tpu.utils.jaxcache import enable_persistent_cache
+    from biokanga.align.params import AlignParams
+    from biokanga.index.device_build import DeviceBuildChunkedAligner
+    from biokanga.sim.simreads import simulate_reads
+    from biokanga.utils.jaxcache import enable_persistent_cache
 
     enable_persistent_cache()
 
@@ -68,7 +68,7 @@ def main() -> None:
     # globally-unresolved remainder — replaces the round-2 per-chunk
     # align_with_rescue, which re-ran the classic pass for every read
     # whose home chunk was elsewhere ((K-1)/K of all dispatches)
-    from biokanga_tpu.parallel.chunked import two_level_chunk_sweep
+    from biokanga.parallel.chunked import two_level_chunk_sweep
 
     ca.build_s.clear()
     merged = two_level_chunk_sweep(ca, blocks)

@@ -26,7 +26,7 @@ sys.path.insert(0, REPO)
 
 
 def load_reads(path):
-    from biokanga_tpu.seq.fasta import read_blocks
+    from biokanga.seq.fasta import read_blocks
 
     names, rows = [], []
     for blk in read_blocks(path, block_size=65536):
@@ -56,17 +56,17 @@ def main() -> None:
     import jax
     import jax.numpy as jnp
 
-    from biokanga_tpu.utils.jaxcache import enable_persistent_cache
+    from biokanga.utils.jaxcache import enable_persistent_cache
 
     enable_persistent_cache()
 
-    from biokanga_tpu.align.params import AlignParams
-    from biokanga_tpu.align.pe import PEAligner, PEParams, classify_pairs
-    from biokanga_tpu.align.pipeline import pad_rows
-    from biokanga_tpu.index.device_build import DeviceBuildChunkedAligner
-    from biokanga_tpu.parallel.chunked import merge_chunk_results
-    from biokanga_tpu.seq.encode import revcomp
-    from biokanga_tpu.sim.simreads import SimReadTruth
+    from biokanga.align.params import AlignParams
+    from biokanga.align.pe import PEAligner, PEParams, classify_pairs
+    from biokanga.align.pipeline import pad_rows
+    from biokanga.index.device_build import DeviceBuildChunkedAligner
+    from biokanga.parallel.chunked import merge_chunk_results
+    from biokanga.seq.encode import revcomp
+    from biokanga.sim.simreads import SimReadTruth
 
     t_setup = time.monotonic()
     codes = np.load(os.path.join(args.dir, "g.npy"), mmap_mode="r")
@@ -104,7 +104,7 @@ def main() -> None:
 
     # ---- sweep 1: GLOBAL two-level — fast pass per (chunk, block),
     # classic cycle only for globally-unresolved reads ------------------
-    from biokanga_tpu.parallel.chunked import two_level_chunk_sweep
+    from biokanga.parallel.chunked import two_level_chunk_sweep
 
     t0 = time.monotonic()
 
@@ -242,14 +242,14 @@ def main() -> None:
 
     # ---- chunked SNP calling (second sweep) -----------------------------
     if not args.skip_snps:
-        from biokanga_tpu.align.snp import (ChunkedPileup, SNPParams,
+        from biokanga.align.snp import (ChunkedPileup, SNPParams,
                                             write_snps_csv)
 
         t2 = time.monotonic()
         # pileup needs ONLY the chunk's genome codes — drop every live
         # reference to the resident index (engine/pea didx ~3.7 GB) and
-        # upload codes per chunk (v5e HBM is 16 GB; index + planes
-        # together OOM'd)
+        # upload codes per chunk (index + planes together need the
+        # memory of both)
         ca._engine = None
         engine = None
         try:
@@ -294,7 +294,7 @@ def main() -> None:
 
         calls = cp.finalize_calls(ref_base, [nm for nm, _ in seqs],
                                   ca.entry_starts, sp)
-        write_snps_csv(os.path.join(args.dir, "tpu_snps.csv"), calls)
+        write_snps_csv(os.path.join(args.dir, "ours_snps.csv"), calls)
         out["detail"]["snp_sweep_s"] = round(time.monotonic() - t2, 1)
         out["detail"]["snp_calls"] = len(calls)
         with open(os.path.join(REPO, "BENCH_3G.json"), "w") as f:

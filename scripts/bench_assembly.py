@@ -6,7 +6,7 @@ N50, and misassemblies (error-free reads => every true contig must be an
 exact substring of the genome, either strand).
 
   reference: refbuild/bin/biokanga assemb -a pe1.fa -A pe2.fa  (-T2)
-  ours:      biokanga_tpu assemble() scaled device-batched path
+  ours:      biokanga assemble() scaled device-batched path
              (assembly/scale_overlap.best_right_extensions)
 
 Prints one JSON line with both rows.  Genome size configurable:
@@ -44,7 +44,7 @@ def n50(lengths):
 def misassemblies(contigs, genome, min_len=1000):
     """Error-free reads: every contig >= min_len must be an exact
     substring of the genome (either strand)."""
-    from biokanga_tpu.seq.encode import revcomp
+    from biokanga.seq.encode import revcomp
 
     gs = genome.tobytes()
     bad = 0
@@ -71,8 +71,8 @@ def main():
     a = ap.parse_args()
     os.makedirs(a.dir, exist_ok=True)
 
-    from biokanga_tpu.seq.fasta import write_fasta
-    from biokanga_tpu.sim.simreads import random_genome, simulate_reads
+    from biokanga.seq.fasta import write_fasta
+    from biokanga.sim.simreads import random_genome, simulate_reads
 
     gbp = int(a.mbp * 1e6)
     seqs = random_genome([("chr1", gbp)], seed=33)
@@ -100,7 +100,7 @@ def main():
         if r.returncode != 0:
             out["ref"] = {"error": (r.stdout + r.stderr)[-500:]}
         else:
-            from biokanga_tpu.seq.fasta import read_seqs
+            from biokanga.seq.fasta import read_seqs
 
             # reference may emit .fasta.SE / paired variants; gather all
             produced = [f for f in os.listdir(a.dir)
@@ -122,7 +122,7 @@ def main():
         print(json.dumps({"ref_partial": out.get("ref")}), flush=True)
 
     if not a.skip_ours:
-        from biokanga_tpu.assembly.assemble import assemble
+        from biokanga.assembly.assemble import assemble
 
         seq_list = [np.asarray(r, np.int8) for r in reads]
         t0 = time.monotonic()

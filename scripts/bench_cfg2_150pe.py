@@ -63,14 +63,14 @@ def main():
     a = ap.parse_args()
     os.makedirs(a.dir, exist_ok=True)
 
-    from biokanga_tpu.align.params import AlignParams
-    from biokanga_tpu.align.pe import PEAligner, PEParams
-    from biokanga_tpu.align.pipeline import AlignEngine
-    from biokanga_tpu.index.build import build_index
-    from biokanga_tpu.index.device import to_device
-    from biokanga_tpu.seq.fasta import write_fasta
-    from biokanga_tpu.sim.simreads import random_genome, simulate_reads
-    from biokanga_tpu.utils.jaxcache import enable_persistent_cache
+    from biokanga.align.params import AlignParams
+    from biokanga.align.pe import PEAligner, PEParams
+    from biokanga.align.pipeline import AlignEngine
+    from biokanga.index.build import build_index
+    from biokanga.index.device import to_device
+    from biokanga.seq.fasta import write_fasta
+    from biokanga.sim.simreads import random_genome, simulate_reads
+    from biokanga.utils.jaxcache import enable_persistent_cache
 
     enable_persistent_cache()
 

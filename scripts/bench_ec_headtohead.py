@@ -10,11 +10,11 @@ reference was designed for: total error rate --err with mix
 10% substitution / 60% insertion / 30% deletion (PacBio CLR-like), and
 runs BOTH correctors on the identical FASTA.
 
-Stages (so the CPU reference row and the TPU ours row can run in
+Stages (so the CPU reference row and the device ours row can run in
 parallel and be merged):
   --stage gen    write pb.fa + truth.npz
   --stage ref    run reference pacbiokanga ecreads -T2, score, write ref.json
-  --stage ours   run biokanga_tpu ec_reads on the chip, score, write ours.json
+  --stage ours   run biokanga ec_reads on the chip, score, write ours.json
   --stage score  merge ref.json + ours.json -> one JSON line
 """
 from __future__ import annotations
@@ -35,49 +35,7 @@ REF_BIN = os.path.join(REPO, "refbuild", "bin", "pacbiokanga")
 
 from bench_ecreads import kmer_recovery, kmer_set  # noqa: E402
 
-
-def gen_reads(n_reads, L, genome_kb, err, seed=3, burst=False):
-    """PacBio CLR-like errors: of all error events, 10% are substitutions,
-    60% insertions, 30% deletions (the indel-dominated profile the
-    reference's PBErrCorrect SW defaults assume, pacbiokanga
-    PBErrCorrect.cpp default match/mismatch/gap scoring).
-
-    burst=True modulates the rate along the read like real CLR noise
-    (clustered errors, VERDICT r4 missing-5): ~20%% of each read lies in
-    random high-noise windows at 3x the base rate, the rest at 0.5x —
-    mean rate ~= err but locally bursty (the regime the reference's
-    500 bp window-deviation artefact filter is calibrated for)."""
-    rng = np.random.default_rng(seed)
-    genome = rng.integers(0, 4, size=genome_kb * 1000, dtype=np.int8)
-    reads, truths = [], []
-    for _ in range(n_reads):
-        st = int(rng.integers(0, len(genome) - L))
-        w = genome[st : st + L].copy()
-        truths.append(w.copy())
-        rate = np.full(L, err)
-        if burst:
-            rate[:] = err * 0.5
-            covered = 0
-            while covered < 0.2 * L:
-                b0 = int(rng.integers(0, L))
-                bl = int(rng.integers(200, 800))
-                rate[b0: b0 + bl] = err * 3.0
-                covered += min(bl, L - b0)
-        r = []
-        for bi, b in enumerate(w):
-            err_i = rate[bi]
-            x = rng.random()
-            if x < err_i * 0.1:
-                r.append((b + rng.integers(1, 4)) % 4)
-            elif x < err_i * 0.7:
-                r.append(b)
-                r.append(rng.integers(0, 4))
-            elif x < err_i:
-                continue
-            else:
-                r.append(b)
-        reads.append(np.array(r, np.int8))
-    return reads, truths
+from biokanga.sim.clr import clr_reads  # noqa: E402
 
 
 def load(dirpath):
@@ -161,10 +119,10 @@ def main():
     a = ap.parse_args()
     os.makedirs(a.dir, exist_ok=True)
 
-    from biokanga_tpu.seq.fasta import read_seqs, write_fasta
+    from biokanga.seq.fasta import read_seqs, write_fasta
 
     if a.stage == "gen":
-        reads, truths = gen_reads(a.reads, a.read_len, a.genome_kb,
+        reads, truths = clr_reads(a.reads, a.read_len, a.genome_kb,
                                   a.err, burst=a.burst)
         write_fasta(os.path.join(a.dir, "pb.fa"),
                     ((f"read{i:06d}", r) for i, r in enumerate(reads)))
@@ -211,9 +169,9 @@ def main():
         return score_ref(a, reads, truths, read_seqs, seconds=dt)
 
     if a.stage == "ours":
-        from biokanga_tpu.pacbio.ecreads import ECParams, ec_reads
+        from biokanga.pacbio.ecreads import ECParams, ec_reads
 
-        # production config: Pallas packed-moves SW engine, 48 overlap
+        # production config: packed-moves SW engine, 48 overlap
         # candidates/probe, 2 iterated-consensus rounds (round 2
         # corrects round 1's output — 0.956 -> 0.998 recovery)
         t0 = time.monotonic()

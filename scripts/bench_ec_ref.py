@@ -62,7 +62,7 @@ def main():
     a = ap.parse_args()
     os.makedirs(a.dir, exist_ok=True)
 
-    from biokanga_tpu.seq.fasta import read_seqs, write_fasta
+    from biokanga.seq.fasta import read_seqs, write_fasta
 
     reads, truths = gen_reads(a.reads, a.read_len, a.genome_kb, a.err)
     names = [f"read{i:06d}" for i in range(a.reads)]

@@ -61,7 +61,7 @@ def main():
     ap.add_argument("--err", type=float, default=0.05)
     args = ap.parse_args()
 
-    from biokanga_tpu.pacbio.ecreads import ECParams, ec_reads
+    from biokanga.pacbio.ecreads import ECParams, ec_reads
 
     rng = np.random.default_rng(3)
     genome = rng.integers(0, 4, size=args.genome_kb * 1000, dtype=np.int8)

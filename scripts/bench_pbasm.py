@@ -3,7 +3,7 @@ the `pacbiokanga contigs` capability row, PBAssemb.cpp role).
 
 Pipeline: CLR-profile reads (10 kb, err 7%, 10/60/30 sub/ins/del) at
 ~25x over a multi-Mbp genome -> ec_reads (2 iterated-consensus rounds,
-Pallas SW engine) -> assemble() with the PacBio relaxed-identity
+packed-moves SW engine) -> assemble() with the PacBio relaxed-identity
 schedule (pacbio contigs defaults) -> N50 + k-mer-based contig accuracy
 (residual post-EC errors mean exact-substring checks do not apply; a
 contig is 'clean' when >= 99.5% of its 32-mers occur in the genome).
@@ -23,8 +23,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 sys.path.insert(0, os.path.join(REPO, "scripts"))
 
-from bench_ec_headtohead import gen_reads  # noqa: E402
 from bench_ecreads import kmer_recovery, kmer_set  # noqa: E402
+
+from biokanga.sim.clr import clr_reads  # noqa: E402
 
 
 def n50(lengths):
@@ -48,16 +49,16 @@ def main():
     ap.add_argument("--err", type=float, default=0.07)
     a = ap.parse_args()
 
-    from biokanga_tpu.assembly.assemble import assemble
-    from biokanga_tpu.pacbio.ecreads import ECParams, ec_reads
-    from biokanga_tpu.utils.jaxcache import enable_persistent_cache
+    from biokanga.assembly.assemble import assemble
+    from biokanga.pacbio.ecreads import ECParams, ec_reads
+    from biokanga.utils.jaxcache import enable_persistent_cache
 
     enable_persistent_cache()
     gbp = int(a.mbp * 1e6)
     n_reads = int(gbp * a.cov / a.read_len)
-    reads, truths = gen_reads(n_reads, a.read_len, gbp // 1000, a.err,
+    reads, truths = clr_reads(n_reads, a.read_len, gbp // 1000, a.err,
                               seed=21)
-    # genome regenerated with the same seed inside gen_reads
+    # genome regenerated with the same seed inside clr_reads
     rng = np.random.default_rng(21)
     genome = rng.integers(0, 4, size=gbp, dtype=np.int8)
 
@@ -77,7 +78,7 @@ def main():
     contigs = [c for c in contigs if len(c) >= 1000]
     n_pre_dedup, bp_pre_dedup = (len(contigs),
                                  int(sum(len(c) for c in contigs)))
-    from biokanga_tpu.assembly.assemble import kmer_containment_dedup
+    from biokanga.assembly.assemble import kmer_containment_dedup
 
     # residual post-EC indels defeat the Hamming containment pass, so
     # the raw contig set is heavily redundant; collapse it the

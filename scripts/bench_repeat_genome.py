@@ -42,8 +42,8 @@ def main():
     npy = os.path.join(a.dir, "g.npy")
 
     if a.stage == "gen":
-        from biokanga_tpu.sim.repeatgenome import repeat_genome
-        from biokanga_tpu.sim.simreads import simulate_reads
+        from biokanga.sim.repeatgenome import repeat_genome
+        from biokanga.sim.simreads import simulate_reads
 
         t0 = time.monotonic()
         codes, stats = repeat_genome(int(a.mbp * 1e6), seed=97)
@@ -75,11 +75,11 @@ def main():
     if a.stage == "ours":
         import jax
 
-        from biokanga_tpu.align.params import AlignParams
-        from biokanga_tpu.align.pipeline import AlignEngine, pad_rows
-        from biokanga_tpu.index.device_build import device_build_index
-        from biokanga_tpu.sim.simreads import SimReadTruth
-        from biokanga_tpu.utils.jaxcache import enable_persistent_cache
+        from biokanga.align.params import AlignParams
+        from biokanga.align.pipeline import AlignEngine, pad_rows
+        from biokanga.index.device_build import device_build_index
+        from biokanga.sim.simreads import SimReadTruth
+        from biokanga.utils.jaxcache import enable_persistent_cache
 
         enable_persistent_cache()
         codes = np.load(npy)
@@ -158,7 +158,7 @@ def main():
         return
 
     # score: reference SAM truth + agreement context
-    from biokanga_tpu.sim.simreads import SimReadTruth
+    from biokanga.sim.simreads import SimReadTruth
 
     ref_map = {}
     n_ref_mapped = 0

@@ -1,7 +1,7 @@
 """Write a uniform-random genome as BOTH int8 codes (.npy) and FASTA.
 
 Used by the 3 Gbp north-star benchmark (VERDICT r2 item 1): the .npy codes
-feed the TPU chunk-cycled run (memory-mapped, no 3 GB FASTA parse) and the
+feed the chunk-cycled device run (memory-mapped, no 3 GB FASTA parse) and the
 FASTA derived from the SAME array feeds the reference binary
 (refbuild/bin/biokanga), so both rows measure identical inputs.
 

@@ -28,7 +28,7 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-from biokanga_tpu.parallel.multihost import (  # noqa: E402
+from biokanga.parallel.multihost import (  # noqa: E402
     global_batch,
     global_mesh,
     init_multihost,
@@ -40,13 +40,13 @@ assert jax.process_count() == nproc
 
 import numpy as np  # noqa: E402
 
-from biokanga_tpu.align.params import AlignParams  # noqa: E402
-from biokanga_tpu.index.chunked import build_chunked_index  # noqa: E402
-from biokanga_tpu.parallel.sharded import (  # noqa: E402
+from biokanga.align.params import AlignParams  # noqa: E402
+from biokanga.index.chunked import build_chunked_index  # noqa: E402
+from biokanga.parallel.sharded import (  # noqa: E402
     build_sharded_align_fn,
     shard_chunked_index,
 )
-from biokanga_tpu.sim.simreads import random_genome, simulate_reads  # noqa: E402
+from biokanga.sim.simreads import random_genome, simulate_reads  # noqa: E402
 
 n_sp = 4
 n_dp = (4 * nproc) // n_sp

@@ -40,19 +40,19 @@ def worker(pid: int, nproc: int, port: int) -> None:
     jax.config.update("jax_platforms", "cpu")
     import numpy as np
 
-    from biokanga_tpu.align.params import AlignParams
-    from biokanga_tpu.index.chunked import build_chunked_index
-    from biokanga_tpu.parallel.multihost import (
+    from biokanga.align.params import AlignParams
+    from biokanga.index.chunked import build_chunked_index
+    from biokanga.parallel.multihost import (
         global_batch,
         global_mesh,
         init_multihost,
         local_results,
     )
-    from biokanga_tpu.parallel.sharded import (
+    from biokanga.parallel.sharded import (
         build_sharded_align_fn,
         shard_chunked_index,
     )
-    from biokanga_tpu.sim.simreads import random_genome, simulate_reads
+    from biokanga.sim.simreads import random_genome, simulate_reads
 
     init_multihost(f"localhost:{port}", nproc, pid)
     n_dp = (DEV_PER_HOST * nproc) // N_SP

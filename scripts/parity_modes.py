@@ -43,10 +43,10 @@ def run(args, cwd, timeout=1200):
 
 
 def our_cli(argv):
-    from biokanga_tpu.cli import main as cli_main
+    from biokanga.cli import main as cli_main
 
     rc = cli_main(argv)
-    assert rc == 0, f"biokanga_tpu {argv} rc={rc}"
+    assert rc == 0, f"biokanga {argv} rc={rc}"
 
 
 def write_genome(path, seqs):
@@ -63,7 +63,7 @@ def build_indexes(tmp, seqs):
     run([REF_BIN, "index", "-i", "g.fa", "-o", "g.sfx", "-r", "t",
          "-F", "idx.log"], tmp)
     our_cli(["index", "-i", os.path.join(tmp, "g.fa"), "-o",
-             os.path.join(tmp, "g_tpu.npz")])
+             os.path.join(tmp, "g_ours.npz")])
 
 
 def sam_agreement(ref_sam, our_sam):
@@ -82,7 +82,7 @@ def sam_agreement(ref_sam, our_sam):
 def mode_indel(tmp, nreads):
     d = os.path.join(tmp, "indel")
     os.makedirs(d, exist_ok=True)
-    from biokanga_tpu.sim.simreads import random_genome
+    from biokanga.sim.simreads import random_genome
 
     seqs = random_genome([("chr1", 500_000)], seed=11)
     build_indexes(d, seqs)
@@ -92,7 +92,7 @@ def mode_indel(tmp, nreads):
     run([REF_BIN, "align", "-i", "r.fa", "-I", "g.sfx", "-o", "ref.sam",
          "-a", "5", "-M5", "-T2", "-F", "aln.log"], d)
     our_cli(["align", "-i", os.path.join(d, "r.fa"), "-I",
-             os.path.join(d, "g_tpu.npz"), "-o", os.path.join(d, "ours.sam"),
+             os.path.join(d, "g_ours.npz"), "-o", os.path.join(d, "ours.sam"),
              "-a", "5"])
     pct, cats, n = sam_agreement(os.path.join(d, "ref.sam"),
                                  os.path.join(d, "ours.sam"))
@@ -103,7 +103,7 @@ def mode_indel(tmp, nreads):
 def mode_splice(tmp, nreads):
     d = os.path.join(tmp, "splice")
     os.makedirs(d, exist_ok=True)
-    from biokanga_tpu.sim.simreads import random_genome
+    from biokanga.sim.simreads import random_genome
 
     seqs = random_genome([("chr1", 500_000)], seed=13)
     build_indexes(d, seqs)
@@ -132,13 +132,13 @@ def mode_splice(tmp, nreads):
             f"|+|{split}|{gap}"
         )
         rows.append(read.astype(np.int8))
-    from biokanga_tpu.seq.fasta import write_fasta
+    from biokanga.seq.fasta import write_fasta
 
     write_fasta(os.path.join(d, "rs.fa"), zip(names, rows))
     run([REF_BIN, "align", "-i", "rs.fa", "-I", "g.sfx", "-o", "ref.sam",
          "-A", "50000", "-M5", "-T2", "-F", "aln.log"], d)
     our_cli(["align", "-i", os.path.join(d, "rs.fa"), "-I",
-             os.path.join(d, "g_tpu.npz"), "-o", os.path.join(d, "ours.sam"),
+             os.path.join(d, "g_ours.npz"), "-o", os.path.join(d, "ours.sam"),
              "-A", "50000"])
     pct, cats, n = sam_agreement(os.path.join(d, "ref.sam"),
                                  os.path.join(d, "ours.sam"))
@@ -191,7 +191,7 @@ def mode_multihit(tmp, nreads):
     run([REF_BIN, "align", "-i", "r.fa", "-I", "g.sfx", "-o", "ref.sam",
          "-M5", "-R", "5", "-T2", "-F", "aln.log"], d)
     our_cli(["align", "-i", os.path.join(d, "r.fa"), "-I",
-             os.path.join(d, "g_tpu.npz"), "-o", os.path.join(d, "ours.sam"),
+             os.path.join(d, "g_ours.npz"), "-o", os.path.join(d, "ours.sam"),
              "-R", "5"])
     pct, cats, n = sam_agreement(os.path.join(d, "ref.sam"),
                                  os.path.join(d, "ours.sam"))
@@ -202,7 +202,7 @@ def mode_multihit(tmp, nreads):
 def mode_snp(tmp, nreads):
     d = os.path.join(tmp, "snp")
     os.makedirs(d, exist_ok=True)
-    from biokanga_tpu.sim.simreads import random_genome
+    from biokanga.sim.simreads import random_genome
 
     seqs = random_genome([("chr1", 500_000)], seed=17)
     build_indexes(d, seqs)
@@ -213,7 +213,7 @@ def mode_snp(tmp, nreads):
     run([REF_BIN, "align", "-i", "r.fa", "-I", "g.sfx", "-o", "ref.sam",
          "-M5", "-T2", "-p", "5", "-S", "refsnp.csv", "-F", "aln.log"], d)
     our_cli(["align", "-i", os.path.join(d, "r.fa"), "-I",
-             os.path.join(d, "g_tpu.npz"), "-o", os.path.join(d, "ours.sam"),
+             os.path.join(d, "g_ours.npz"), "-o", os.path.join(d, "ours.sam"),
              "-O", os.path.join(d, "oursnp.csv"), "-p", "5"])
 
     def load_snps(path):

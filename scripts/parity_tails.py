@@ -48,7 +48,7 @@ REF_BIN = os.path.join(REPO, "refbuild", "bin", "biokanga")
 def classify_indel(tmp, nreads):
     d = os.path.join(tmp, "indel")
     os.makedirs(d, exist_ok=True)
-    from biokanga_tpu.sim.simreads import random_genome
+    from biokanga.sim.simreads import random_genome
 
     seqs = random_genome([("chr1", 500_000)], seed=11)
     build_indexes(d, seqs)
@@ -58,7 +58,7 @@ def classify_indel(tmp, nreads):
     run([REF_BIN, "align", "-i", "r.fa", "-I", "g.sfx", "-o", "ref.sam",
          "-a", "5", "-M5", "-T2", "-F", "aln.log"], d)
     our_cli(["align", "-i", os.path.join(d, "r.fa"), "-I",
-             os.path.join(d, "g_tpu.npz"), "-o",
+             os.path.join(d, "g_ours.npz"), "-o",
              os.path.join(d, "ours.sam"), "-a", "5"])
     ref = load_sam(os.path.join(d, "ref.sam"))
     ours = load_sam(os.path.join(d, "ours.sam"))
@@ -137,8 +137,8 @@ def classify_indel(tmp, nreads):
 def classify_splice(tmp, nreads):
     d = os.path.join(tmp, "splice")
     os.makedirs(d, exist_ok=True)
-    from biokanga_tpu.seq.fasta import write_fasta
-    from biokanga_tpu.sim.simreads import random_genome
+    from biokanga.seq.fasta import write_fasta
+    from biokanga.sim.simreads import random_genome
 
     seqs = random_genome([("chr1", 500_000)], seed=13)
     build_indexes(d, seqs)
@@ -165,7 +165,7 @@ def classify_splice(tmp, nreads):
     run([REF_BIN, "align", "-i", "rs.fa", "-I", "g.sfx", "-o", "ref.sam",
          "-A", "50000", "-M5", "-T2", "-F", "aln.log"], d)
     our_cli(["align", "-i", os.path.join(d, "rs.fa"), "-I",
-             os.path.join(d, "g_tpu.npz"), "-o",
+             os.path.join(d, "g_ours.npz"), "-o",
              os.path.join(d, "ours.sam"), "-A", "50000"])
     ref = load_sam(os.path.join(d, "ref.sam"))
     ours = load_sam(os.path.join(d, "ours.sam"))

@@ -10,9 +10,6 @@ Variants:
               gather was already fast)
   sortnoinv — sorted gather without the inverse permutation (lower bound
               for consumers that can work in sorted order)
-  pallas    — double-buffered DMA pipeline streaming the TABLE through
-              VMEM tiles while gathering from the resident tile (only
-              pays off if candidates-per-tile is high)
 
 Usage: python scripts/probe_gather.py [--mb 128] [--n 6291456]
 """

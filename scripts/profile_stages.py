@@ -5,13 +5,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from biokanga_tpu.align.params import AlignParams
-from biokanga_tpu.align.pipeline import _rc_reads, _strand_candidates
-from biokanga_tpu.index.build import build_index
-from biokanga_tpu.index.device import to_device
-from biokanga_tpu.ops.extend_packed import hamming_extend_packed, pack_reads
-from biokanga_tpu.ops.lookup import pack_read_kmers, seed_range_lookup
-from biokanga_tpu.sim.simreads import random_genome, simulate_reads
+from biokanga.align.params import AlignParams
+from biokanga.align.pipeline import _rc_reads, _strand_candidates
+from biokanga.index.build import build_index
+from biokanga.index.device import to_device
+from biokanga.ops.extend_packed import hamming_extend_packed, pack_reads
+from biokanga.ops.lookup import pack_read_kmers, seed_range_lookup
+from biokanga.sim.simreads import random_genome, simulate_reads
 
 
 def timeit(fn, *args, n=5):
@@ -82,7 +82,7 @@ def main():
     print(f"rc_reads:        {timeit(f_rc, reads_d, lengths_d)*1e3:8.1f} ms")
 
     # full batch for reference
-    from biokanga_tpu.align.pipeline import AlignEngine
+    from biokanga.align.pipeline import AlignEngine
 
     engine = AlignEngine(didx, params)
     engine.align_batch(reads, lengths)  # compile

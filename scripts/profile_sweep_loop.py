@@ -27,10 +27,10 @@ def main():
 
     import jax
 
-    from biokanga_tpu.align.params import AlignParams
-    from biokanga_tpu.align.pipeline import pad_rows
-    from biokanga_tpu.index.device_build import DeviceBuildChunkedAligner
-    from biokanga_tpu.sim.simreads import simulate_reads
+    from biokanga.align.params import AlignParams
+    from biokanga.align.pipeline import pad_rows
+    from biokanga.index.device_build import DeviceBuildChunkedAligner
+    from biokanga.sim.simreads import simulate_reads
 
     n = int(args.mbp * 1e6)
     rng = np.random.default_rng(7)
@@ -100,7 +100,7 @@ def main():
     # checkpoint save cost
     import tempfile
 
-    from biokanga_tpu.utils.checkpoint import SweepCheckpoint
+    from biokanga.utils.checkpoint import SweepCheckpoint
     d = tempfile.mkdtemp()
     ck = SweepCheckpoint(d, "sig")
     t0 = time.monotonic()

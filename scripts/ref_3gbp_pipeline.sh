@@ -5,7 +5,7 @@
 #
 # The genome is emitted as 24 equal chromosomes (human-like; the reference
 # simreads segfaults on a single 3 Gbp entry) and the PE reads come from
-# biokanga_tpu's simulator so the reference and TPU rows share ONE input
+# biokanga's simulator so the reference and our rows share ONE input
 # set (scripts/sim_3gbp_reads.py).
 # Run in background; stage timings land in $DIR/stage_times.txt.
 set -e

@@ -1,7 +1,7 @@
 """SAM parity scorer: compare two SAM files read-by-read.
 
 Scores the fraction of reads whose accepted alignment matches between a
-reference `biokanga align` run and a biokanga_tpu run on the same inputs
+reference `biokanga align` run and a biokanga run on the same inputs
 (BASELINE.md north-star "SAM equality %": chrom, loci, strand, CIGAR,
 flags).  Reads are keyed by QNAME; secondary/supplementary lines ignored.
 

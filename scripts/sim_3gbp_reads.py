@@ -1,6 +1,6 @@
 """Simulate the north-star PE read set straight from the 3 Gbp .npy codes
 (no 3 GB FASTA parse), writing r1.fa/r2.fa with simreads truth
-descriptors.  The SAME files feed the reference binary and the TPU run,
+descriptors.  The SAME files feed the reference binary and this program's run,
 so both comparison rows measure identical inputs (VERDICT r2 item 1).
 
 Usage: python scripts/sim_3gbp_reads.py DIR [--pairs 262144] [--chroms 24]
@@ -28,8 +28,8 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=5)
     args = ap.parse_args()
 
-    from biokanga_tpu.seq.fasta import write_fasta
-    from biokanga_tpu.sim.simreads import simulate_reads
+    from biokanga.seq.fasta import write_fasta
+    from biokanga.sim.simreads import simulate_reads
 
     codes = np.load(os.path.join(args.dir, "g.npy"), mmap_mode="r")
     n = len(codes)

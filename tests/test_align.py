@@ -1,12 +1,12 @@
 import numpy as np
 import pytest
 
-from biokanga_tpu.align.params import AlignParams, Sensitivity, core_offsets
-from biokanga_tpu.align.pipeline import AlignEngine
-from biokanga_tpu.index.build import build_index
-from biokanga_tpu.index.device import to_device
-from biokanga_tpu.seq.encode import revcomp
-from biokanga_tpu.sim.simreads import random_genome, simulate_reads
+from biokanga.align.params import AlignParams, Sensitivity, core_offsets
+from biokanga.align.pipeline import AlignEngine
+from biokanga.index.build import build_index
+from biokanga.index.device import to_device
+from biokanga.seq.encode import revcomp
+from biokanga.sim.simreads import random_genome, simulate_reads
 
 
 @pytest.fixture(scope="module")
@@ -19,7 +19,7 @@ def genome_and_engine():
 
 def brute_best_hits(concat, entry_starts, read, max_mm):
     """All (locus, strand, mm) Hamming alignments with mm <= max_mm, scanning
-    every locus on both strands — the oracle the TPU path must match."""
+    every locus on both strands — the oracle the device path must match."""
     L = len(read)
     hits = []
     rc = revcomp(read)

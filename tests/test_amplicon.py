@@ -3,11 +3,11 @@ biokanga/MergeReadPairs.h:14-17, barcode table MergeReadPairs.cpp:33-57):
 plate-well identification from 5'/3' barcodes, trimming, per-well files."""
 import numpy as np
 
-from biokanga_tpu.cli import main
-from biokanga_tpu.seq.encode import revcomp
-from biokanga_tpu.seq.fasta import read_seqs, write_fastq
-from biokanga_tpu.sim.simreads import random_genome
-from biokanga_tpu.tools.mergeoverlaps import PlateBarcodes
+from biokanga.cli import main
+from biokanga.seq.encode import revcomp
+from biokanga.seq.fasta import read_seqs, write_fastq
+from biokanga.sim.simreads import random_genome
+from biokanga.tools.mergeoverlaps import PlateBarcodes
 
 
 def _amplicon_pairs(rng, bc, wells, insert=120, L=90):

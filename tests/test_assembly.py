@@ -3,10 +3,10 @@ PE links order contigs."""
 import numpy as np
 import pytest
 
-from biokanga_tpu.assembly.assemble import assemble, one_pass
-from biokanga_tpu.assembly.scaffold import components, pe_links, scaffold
-from biokanga_tpu.seq.encode import revcomp
-from biokanga_tpu.sim.simreads import random_genome
+from biokanga.assembly.assemble import assemble, one_pass
+from biokanga.assembly.scaffold import components, pe_links, scaffold
+from biokanga.seq.encode import revcomp
+from biokanga.sim.simreads import random_genome
 
 
 def tile_reads(g, read_len=100, stride=40):
@@ -88,8 +88,8 @@ def test_containment_removal_unfragments():
     long contigs covering the source."""
     import numpy as np
 
-    from biokanga_tpu.assembly.assemble import assemble, remove_contained
-    from biokanga_tpu.sim.simreads import random_genome
+    from biokanga.assembly.assemble import assemble, remove_contained
+    from biokanga.sim.simreads import random_genome
 
     rng = np.random.default_rng(3)
     g = random_genome([("g", 8000)], seed=5)[0][1]
@@ -110,8 +110,8 @@ def test_kmer_containment_dedup_indel_tolerant():
     sequence survives."""
     import numpy as np
 
-    from biokanga_tpu.assembly.assemble import kmer_containment_dedup
-    from biokanga_tpu.seq.encode import revcomp
+    from biokanga.assembly.assemble import kmer_containment_dedup
+    from biokanga.seq.encode import revcomp
 
     rng = np.random.default_rng(4)
     big = rng.integers(0, 4, size=5000, dtype=np.int8)

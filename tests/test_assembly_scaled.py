@@ -3,9 +3,9 @@ host-verified pass, plus an E2E readset assembly through the scaled path.
 """
 import numpy as np
 
-from biokanga_tpu.assembly.assemble import assemble, one_pass, one_pass_scaled
-from biokanga_tpu.seq.encode import revcomp
-from biokanga_tpu.sim.simreads import random_genome, simulate_reads
+from biokanga.assembly.assemble import assemble, one_pass, one_pass_scaled
+from biokanga.seq.encode import revcomp
+from biokanga.sim.simreads import random_genome, simulate_reads
 
 
 def _reads_from(genome, n, L, seed, sub_rate=0.0):

@@ -4,15 +4,15 @@ import struct
 
 import numpy as np
 
-from biokanga_tpu.align.bam import (
+from biokanga.align.bam import (
     BGZF_EOF,
     bgzf_decompress,
     read_bam,
     sam_to_bam,
 )
-from biokanga_tpu.cli import main
-from biokanga_tpu.seq.fasta import write_fasta
-from biokanga_tpu.sim.simreads import SimReadTruth, random_genome
+from biokanga.cli import main
+from biokanga.seq.fasta import write_fasta
+from biokanga.sim.simreads import SimReadTruth, random_genome
 
 
 def test_bgzf_is_valid_gzip(tmp_path):
@@ -77,7 +77,7 @@ def test_align_bam_output(tmp_path):
 
 
 def test_bai_index_written_and_valid(tmp_path):
-    from biokanga_tpu.align.bam import read_bai
+    from biokanga.align.bam import read_bai
 
     sam = tmp_path / "c.sam"
     lines = ["@HD\tVN:1.6\n@SQ\tSN:chr1\tLN:100000\n"]

@@ -2,18 +2,18 @@
 their true loci through the CT/GA collapsed-index pair."""
 import numpy as np
 
-from biokanga_tpu.align.bisulfite import BisulfiteAligner
-from biokanga_tpu.align.params import AlignParams
-from biokanga_tpu.align.pipeline import AlignEngine, pad_rows
-from biokanga_tpu.cli import main
-from biokanga_tpu.index.build import (
+from biokanga.align.bisulfite import BisulfiteAligner
+from biokanga.align.params import AlignParams
+from biokanga.align.pipeline import AlignEngine, pad_rows
+from biokanga.cli import main
+from biokanga.index.build import (
     build_bisulfite_indexes, is_bisulfite_index, load_bisulfite_index,
     save_bisulfite_index,
 )
-from biokanga_tpu.index.device import to_device
-from biokanga_tpu.seq.encode import ct_collapse, ga_collapse, revcomp
-from biokanga_tpu.seq.fasta import write_fasta, write_fastq
-from biokanga_tpu.sim.simreads import random_genome
+from biokanga.index.device import to_device
+from biokanga.seq.encode import ct_collapse, ga_collapse, revcomp
+from biokanga.seq.fasta import write_fasta, write_fastq
+from biokanga.sim.simreads import random_genome
 
 
 def _bs_reads(genome, n, read_len, rng, conv_rate=0.98):

@@ -3,13 +3,13 @@ reverse strand, PSL output shape."""
 import numpy as np
 import pytest
 
-from biokanga_tpu.cli import main
-from biokanga_tpu.index.build import build_index
-from biokanga_tpu.index.device import to_device
-from biokanga_tpu.seq.encode import revcomp
-from biokanga_tpu.seq.fasta import write_fasta
-from biokanga_tpu.sim.simreads import random_genome
-from biokanga_tpu.tools.blitz import BlitzParams, blitz_query, psl_row
+from biokanga.cli import main
+from biokanga.index.build import build_index
+from biokanga.index.device import to_device
+from biokanga.seq.encode import revcomp
+from biokanga.seq.fasta import write_fasta
+from biokanga.sim.simreads import random_genome
+from biokanga.tools.blitz import BlitzParams, blitz_query, psl_row
 
 
 @pytest.fixture(scope="module")

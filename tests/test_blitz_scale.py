@@ -2,12 +2,12 @@
 rolling-key seed path + device-scan chaining, and PSLX output."""
 import numpy as np
 
-from biokanga_tpu.cli import main
-from biokanga_tpu.index.build import build_index
-from biokanga_tpu.index.device import to_device
-from biokanga_tpu.seq.fasta import write_fasta
-from biokanga_tpu.sim.simreads import random_genome
-from biokanga_tpu.tools.blitz import BlitzParams, blitz_query, pslx_row
+from biokanga.cli import main
+from biokanga.index.build import build_index
+from biokanga.index.device import to_device
+from biokanga.seq.fasta import write_fasta
+from biokanga.sim.simreads import random_genome
+from biokanga.tools.blitz import BlitzParams, blitz_query, pslx_row
 
 
 def test_multi_mbp_query():

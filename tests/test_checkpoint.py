@@ -3,12 +3,12 @@ signature rejection, and resume-equals-fresh results."""
 import numpy as np
 import pytest
 
-from biokanga_tpu.align.params import AlignParams
-from biokanga_tpu.align.pipeline import pad_rows
-from biokanga_tpu.index.chunked import build_chunked_index
-from biokanga_tpu.parallel.chunked import ChunkedAligner
-from biokanga_tpu.sim.simreads import random_genome, simulate_reads
-from biokanga_tpu.utils.checkpoint import SweepCheckpoint, config_signature
+from biokanga.align.params import AlignParams
+from biokanga.align.pipeline import pad_rows
+from biokanga.index.chunked import build_chunked_index
+from biokanga.parallel.chunked import ChunkedAligner
+from biokanga.sim.simreads import random_genome, simulate_reads
+from biokanga.utils.checkpoint import SweepCheckpoint, config_signature
 
 
 def _setup():

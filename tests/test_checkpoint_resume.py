@@ -4,10 +4,10 @@ killed run to IDENTICAL results.
 """
 import numpy as np
 
-from biokanga_tpu.cli import main as cli_main
-from biokanga_tpu.pacbio.ecreads import ECParams, ec_reads, ec_reads_checkpointed
-from biokanga_tpu.seq.fasta import write_fasta
-from biokanga_tpu.sim.simreads import random_genome, simulate_reads
+from biokanga.cli import main as cli_main
+from biokanga.pacbio.ecreads import ECParams, ec_reads, ec_reads_checkpointed
+from biokanga.seq.fasta import write_fasta
+from biokanga.sim.simreads import random_genome, simulate_reads
 
 
 def _noisy_long_reads(g, n, L, err, seed):

@@ -6,14 +6,14 @@ against the vectorised paths (SURVEY §4 test strategy)."""
 import numpy as np
 import pytest
 
-from biokanga_tpu.chromatin.conformation import (
+from biokanga.chromatin.conformation import (
     OCT_PARAM_NAMES, N_OCT, conformation_profile, idx_to_oligo,
     load_octamer_params, octamer_to_idx, oligo_indices,
     step_octamer_indices)
-from biokanga_tpu.chromatin.nucleosomes import (
+from biokanga.chromatin.nucleosomes import (
     baseline_normalise, call_dyads, load_mnase_prefs, mnase_window_scores,
     moving_average, site_cut_probs)
-from biokanga_tpu.cli import main
+from biokanga.cli import main
 
 
 def _write_params(path, octamers=None, value=1.0):
@@ -120,7 +120,7 @@ def _write_fasta(path, seqs):
 
 
 def test_dna_site_potential(tmp_path):
-    from biokanga_tpu.tools.chromatin_tools import dna_site_potential
+    from biokanga.tools.chromatin_tools import dna_site_potential
 
     genome = tmp_path / "g.fa"
     seq = "ACGTACGTACGTAAAATTTTCCCCGGGGACGT" * 8
@@ -141,7 +141,7 @@ def test_dna_site_potential(tmp_path):
 
 
 def test_simulate_mnase_and_prednucs(tmp_path, rng):
-    from biokanga_tpu.tools.chromatin_tools import (pred_nucleosomes,
+    from biokanga.tools.chromatin_tools import (pred_nucleosomes,
                                                     simulate_mnase)
 
     genome = tmp_path / "g.fa"
@@ -177,7 +177,7 @@ def test_simulate_mnase_and_prednucs(tmp_path, rng):
 
 
 def test_predconfnucs_and_profiles(tmp_path, rng):
-    from biokanga_tpu.tools.chromatin_tools import (gen_struct_profile,
+    from biokanga.tools.chromatin_tools import (gen_struct_profile,
                                                     gen_struct_stats,
                                                     pred_conf_nucs)
 
@@ -209,7 +209,7 @@ def test_predconfnucs_and_profiles(tmp_path, rng):
 
 
 def test_gencomposition(tmp_path):
-    from biokanga_tpu.tools.chromatin_tools import gen_composition
+    from biokanga.tools.chromatin_tools import gen_composition
 
     genome = tmp_path / "g.fa"
     _write_fasta(genome, [("c1", "ACGTACGT")])  # AC,CG,GT,TA x~2
@@ -225,9 +225,9 @@ def test_gencomposition(tmp_path):
 
 
 def test_centroids_roundtrip(tmp_path):
-    from biokanga_tpu.tools.chromatin_tools import (gen_centroid_metrics,
+    from biokanga.tools.chromatin_tools import (gen_centroid_metrics,
                                                     proc_centroids)
-    from biokanga_tpu.tools.converters3 import genbiomultialign
+    from biokanga.tools.converters3 import genbiomultialign
 
     maf = tmp_path / "a.maf"
     maf.write_text(
@@ -255,7 +255,7 @@ def test_centroids_roundtrip(tmp_path):
 
 
 def test_gennucstats(tmp_path):
-    from biokanga_tpu.tools.chromatin_tools import gen_nuc_stats
+    from biokanga.tools.chromatin_tools import gen_nuc_stats
 
     bkg = tmp_path / "bkg.bed"
     bkg.write_text("chr1\t100\t247\tn1\t0\t+\nchr1\t400\t547\tn2\t0\t+\n")

@@ -5,13 +5,13 @@ reads including multi-hit, overflow, and N-containing cases, with chunk
 cuts falling mid-entry so cross-cut ownership is exercised."""
 import numpy as np
 
-from biokanga_tpu.align.params import AlignParams
-from biokanga_tpu.align.pipeline import AlignEngine, pad_rows
-from biokanga_tpu.index.build import build_index
-from biokanga_tpu.index.chunked import build_chunked_index
-from biokanga_tpu.index.device import to_device
-from biokanga_tpu.parallel.chunked import ChunkedAligner
-from biokanga_tpu.sim.simreads import random_genome, simulate_reads
+from biokanga.align.params import AlignParams
+from biokanga.align.pipeline import AlignEngine, pad_rows
+from biokanga.index.build import build_index
+from biokanga.index.chunked import build_chunked_index
+from biokanga.index.device import to_device
+from biokanga.parallel.chunked import ChunkedAligner
+from biokanga.sim.simreads import random_genome, simulate_reads
 
 
 def _genome_with_repeats(seed=11):
@@ -81,9 +81,9 @@ def test_chunked_equals_single():
 
 
 def test_chunked_cli_se_pe(tmp_path):
-    from biokanga_tpu.cli import main
-    from biokanga_tpu.seq.fasta import write_fasta, write_fastq
-    from biokanga_tpu.sim.simreads import SimReadTruth
+    from biokanga.cli import main
+    from biokanga.seq.fasta import write_fasta, write_fastq
+    from biokanga.sim.simreads import SimReadTruth
 
     seqs = random_genome([("chr1", 40000), ("chr2", 30000)], seed=21)
     ref = str(tmp_path / "ref.fa")
@@ -135,8 +135,8 @@ def test_chunked_cli_se_pe(tmp_path):
 
 def test_chunked_extended_indel_splice():
     """-a/-A fall-through over chunks == single-index ExtendedAligner."""
-    from biokanga_tpu.align.pipeline import ExtendedAligner
-    from biokanga_tpu.parallel.chunked import ChunkedExtendedAligner
+    from biokanga.align.pipeline import ExtendedAligner
+    from biokanga.parallel.chunked import ChunkedExtendedAligner
 
     seqs = random_genome([("c1", 60000)], seed=17)
     s = seqs[0][1]
@@ -177,7 +177,7 @@ def test_chunked_extended_indel_splice():
 
 
 def test_chunk_plan_and_blocks():
-    from biokanga_tpu.index.chunked import plan_chunks
+    from biokanga.index.chunked import plan_chunks
 
     plans = plan_chunks(10_000, 3000, 128)
     assert plans[0] == (0, 2500, 2628)

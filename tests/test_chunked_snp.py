@@ -2,20 +2,20 @@
 chunked CLI -O path end-to-end against planted SNP truth."""
 import numpy as np
 
-from biokanga_tpu.align.params import AlignParams
-from biokanga_tpu.align.pipeline import AlignEngine, pad_rows
-from biokanga_tpu.align.snp import (
+from biokanga.align.params import AlignParams
+from biokanga.align.pipeline import AlignEngine, pad_rows
+from biokanga.align.snp import (
     ChunkedPileup,
     PileupAccumulator,
     SNPParams,
     call_snps,
 )
-from biokanga_tpu.index.build import build_index
-from biokanga_tpu.index.chunked import build_chunked_index
-from biokanga_tpu.index.device import to_device
-from biokanga_tpu.parallel.chunked import ChunkedAligner
-from biokanga_tpu.seq.encode import revcomp
-from biokanga_tpu.sim.simreads import plant_snps, random_genome, simulate_reads
+from biokanga.index.build import build_index
+from biokanga.index.chunked import build_chunked_index
+from biokanga.index.device import to_device
+from biokanga.parallel.chunked import ChunkedAligner
+from biokanga.seq.encode import revcomp
+from biokanga.sim.simreads import plant_snps, random_genome, simulate_reads
 
 
 def test_chunked_pileup_matches_single():
@@ -86,8 +86,8 @@ def test_chunked_pileup_matches_single():
 
 
 def test_chunked_cli_snp(tmp_path):
-    from biokanga_tpu.cli import main
-    from biokanga_tpu.seq.fasta import write_fasta, write_fastq
+    from biokanga.cli import main
+    from biokanga.seq.fasta import write_fasta, write_fastq
 
     seqs = random_genome([("chr1", 30000)], seed=8)
     mut, snps = plant_snps(seqs, snp_rate_per_mbp=500, seed=3)

@@ -5,9 +5,9 @@ surface the reference exposes (index/align/simreads subcommands).
 """
 import numpy as np
 
-from biokanga_tpu.cli import main
-from biokanga_tpu.seq.fasta import write_fasta
-from biokanga_tpu.sim.simreads import SimReadTruth, random_genome
+from biokanga.cli import main
+from biokanga.seq.fasta import write_fasta
+from biokanga.sim.simreads import SimReadTruth, random_genome
 
 
 def test_cli_simreads_index_align(tmp_path):

@@ -1,14 +1,14 @@
 """SOLiD colorspace: transform properties, csfasta IO, end-to-end align."""
 import numpy as np
 
-from biokanga_tpu.cli import main
-from biokanga_tpu.seq.encode import revcomp, to_colorspace
-from biokanga_tpu.seq.fasta import (
+from biokanga.cli import main
+from biokanga.seq.encode import revcomp, to_colorspace
+from biokanga.seq.fasta import (
     read_csfasta,
     write_csfasta,
     write_fasta,
 )
-from biokanga_tpu.sim.simreads import SimReadTruth, random_genome
+from biokanga.sim.simreads import SimReadTruth, random_genome
 
 
 def test_colorspace_transform_properties():

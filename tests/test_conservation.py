@@ -3,8 +3,8 @@ PHYLIP export, rollups, set ops."""
 import numpy as np
 import pytest
 
-from biokanga_tpu.cli import main
-from biokanga_tpu.tools.conservation import (_hypercore_walk,
+from biokanga.cli import main
+from biokanga.tools.conservation import (_hypercore_walk,
                                              gen_align_conf,
                                              gen_align_loci2core,
                                              gen_align_ref2relloci,
@@ -17,7 +17,7 @@ from biokanga_tpu.tools.conservation import (_hypercore_walk,
                                              gen_rollups,
                                              gen_seq_candidates, gen_ultras,
                                              loci2phylip, process_csv_files)
-from biokanga_tpu.tools.converters3 import genbiomultialign
+from biokanga.tools.converters3 import genbiomultialign
 
 
 def _algn(tmp_path, blocks):
@@ -201,6 +201,6 @@ def test_cli_dispatch(tmp_path):
                  "-O", str(cores), "-n", "50"]) == 0
     assert len(cores.read_text().splitlines()) == 1
     assert main(["genalignstats", "-i", algn, "-o", str(out)]) == 0
-    from biokanga_tpu.cli import SUBCOMMANDS
+    from biokanga.cli import SUBCOMMANDS
 
     assert "maploci2features" in SUBCOMMANDS

@@ -3,16 +3,16 @@ and whole-vector containment (libbiokanga/Contaminants.h:31,95-110;
 naming convention Contaminants.cpp:195-203), wired into filter and ngsqc."""
 import numpy as np
 
-from biokanga_tpu.seq.contaminants import (
+from biokanga.seq.contaminants import (
     T_3PE1,
     T_3PE2,
     T_5PE1,
     T_5PE2,
     Contaminants,
 )
-from biokanga_tpu.seq.encode import ascii_to_codes, revcomp
-from biokanga_tpu.seq.fasta import write_fasta, write_fastq
-from biokanga_tpu.sim.simreads import random_genome
+from biokanga.seq.encode import ascii_to_codes, revcomp
+from biokanga.seq.fasta import write_fasta, write_fastq
+from biokanga.sim.simreads import random_genome
 
 
 def _db(tmp_path, entries):
@@ -82,7 +82,7 @@ def test_vector_containment(tmp_path):
 
 
 def test_filter_cli_with_contaminant_db(tmp_path):
-    from biokanga_tpu.cli import main
+    from biokanga.cli import main
 
     ad = ascii_to_codes(b"AGATCGGAAGAGCACACGTCTGAA")
     vec = random_genome([("v", 400)], seed=2)[0][1]
@@ -98,7 +98,7 @@ def test_filter_cli_with_contaminant_db(tmp_path):
     assert main(["filter", "-i", fq, "-o", out, "-c", cfa,
                  "--min-len", "50", "-n", "0"]) == 0
     got = {}
-    from biokanga_tpu.seq.fasta import read_seqs
+    from biokanga.seq.fasta import read_seqs
 
     for r in read_seqs(out):
         got[r.name] = r.codes
@@ -108,7 +108,7 @@ def test_filter_cli_with_contaminant_db(tmp_path):
 
 
 def test_ngsqc_contaminant_report(tmp_path):
-    from biokanga_tpu.cli import main
+    from biokanga.cli import main
 
     ad = ascii_to_codes(b"AGATCGGAAGAGCACACGTCT")
     cfa = str(tmp_path / "c.fa")
@@ -126,9 +126,9 @@ def test_ngsqc_contaminant_report(tmp_path):
 
 
 def test_near_duplicate_mask_and_filter(tmp_path):
-    from biokanga_tpu.cli import main
-    from biokanga_tpu.seq.fasta import read_seqs as _rs
-    from biokanga_tpu.tools.filter_reads import near_duplicate_mask
+    from biokanga.cli import main
+    from biokanga.seq.fasta import read_seqs as _rs
+    from biokanga.tools.filter_reads import near_duplicate_mask
 
     rng = np.random.default_rng(11)
     base = rng.integers(0, 4, size=80).astype(np.int8)

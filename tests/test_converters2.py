@@ -2,10 +2,10 @@
 agp2genome, dmpbioseq, hammingdist."""
 import numpy as np
 
-from biokanga_tpu.cli import main
-from biokanga_tpu.seq.encode import codes_to_ascii, revcomp
-from biokanga_tpu.seq.fasta import read_seqs, write_fasta
-from biokanga_tpu.sim.simreads import random_genome
+from biokanga.cli import main
+from biokanga.seq.encode import codes_to_ascii, revcomp
+from biokanga.seq.fasta import read_seqs, write_fasta
+from biokanga.sim.simreads import random_genome
 
 
 def test_psl2csv(tmp_path):
@@ -105,7 +105,7 @@ def test_agp2genome(tmp_path):
 
 
 def test_dmpbioseq_rds(tmp_path):
-    from biokanga_tpu.seq.rds import write_rds
+    from biokanga.seq.rds import write_rds
 
     rng = np.random.default_rng(3)
     recs = [(f"r{i}", rng.integers(0, 4, 60).astype(np.int8))

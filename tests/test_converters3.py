@@ -2,9 +2,9 @@
 fasta2struct, plus the BED12 fasta2bed upgrade."""
 import numpy as np
 
-from biokanga_tpu.cli import main
-from biokanga_tpu.seq.fasta import write_fasta
-from biokanga_tpu.tools.converters3 import (
+from biokanga.cli import main
+from biokanga.seq.fasta import write_fasta
+from biokanga.tools.converters3 import (
     load_biobed,
     load_biomultialign,
     seq_struct_profile,
@@ -102,7 +102,7 @@ def test_fasta2struct_user_params(tmp_path):
     steps = [a + b for a in "ACGT" for b in "ACGT"]
     params.write_text("".join(
         f"{s},0,0,0,99,0,0,0,0,0\n" for s in steps))
-    from biokanga_tpu.tools.converters3 import load_struct_params
+    from biokanga.tools.converters3 import load_struct_params
 
     table = load_struct_params(str(params))
     prof = seq_struct_profile(np.array([0, 1, 2, 3]), "twist", table)

@@ -1,7 +1,7 @@
 """Generic csv2sqlite loader + alignvalidate harness."""
 import sqlite3
 
-from biokanga_tpu.cli import main
+from biokanga.cli import main
 
 
 def test_csv2sqlite(tmp_path):

@@ -1,15 +1,15 @@
 """Device-side index build == host build (keys, LUT) and align parity."""
 import numpy as np
 
-from biokanga_tpu.align.params import AlignParams
-from biokanga_tpu.align.pipeline import AlignEngine, pad_rows
-from biokanga_tpu.index.build import build_index
-from biokanga_tpu.index.device import to_device
-from biokanga_tpu.index.device_build import (
+from biokanga.align.params import AlignParams
+from biokanga.align.pipeline import AlignEngine, pad_rows
+from biokanga.index.build import build_index
+from biokanga.index.device import to_device
+from biokanga.index.device_build import (
     DeviceBuildChunkedAligner,
     device_build_index,
 )
-from biokanga_tpu.sim.simreads import random_genome, simulate_reads
+from biokanga.sim.simreads import random_genome, simulate_reads
 
 
 def test_device_build_matches_host():

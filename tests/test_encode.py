@@ -1,6 +1,6 @@
 import numpy as np
 
-from biokanga_tpu.seq.encode import (
+from biokanga.seq.encode import (
     ascii_to_codes,
     codes_to_ascii,
     pack_kmers_u32,

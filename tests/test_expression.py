@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from biokanga_tpu.cli import main
-from biokanga_tpu.seq.annotations import (
+from biokanga.cli import main
+from biokanga.seq.annotations import (
     FeatureIndex,
     read_bed,
     read_gff3,
@@ -136,7 +136,7 @@ def test_rnade_bootstrap_cis():
     large p-value and a CI containing 1."""
     import numpy as np
 
-    from biokanga_tpu.tools.expression import _bootstrap_de
+    from biokanga.tools.expression import _bootstrap_de
 
     rng = np.random.default_rng(3)
     c = np.stack([np.full(10, 50.0), np.full(10, 40.0)])
@@ -153,8 +153,8 @@ def test_rnade_bootstrap_cis():
 def test_rnade_region_modes():
     import numpy as np
 
-    from biokanga_tpu.seq.annotations import Feature
-    from biokanga_tpu.tools.expression import region_intervals
+    from biokanga.seq.annotations import Feature
+    from biokanga.tools.expression import region_intervals
 
     ft = Feature("c", 100, 1000, "g", strand="+",
                  exon_starts=[0, 400, 800], exon_sizes=[100, 100, 100],

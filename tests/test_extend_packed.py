@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from biokanga_tpu.ops.extend import hamming_extend
-from biokanga_tpu.ops.extend_packed import (
+from biokanga.ops.extend import hamming_extend
+from biokanga.ops.extend_packed import (
     hamming_extend_packed,
     pack_genome,
     pack_reads,

@@ -1,9 +1,9 @@
 """DiSNP/TriSNP haplotype counting tests."""
 import numpy as np
 
-from biokanga_tpu.cli import main
-from biokanga_tpu.seq.fasta import write_fasta, write_fastq
-from biokanga_tpu.sim.simreads import random_genome, simulate_reads
+from biokanga.cli import main
+from biokanga.seq.fasta import write_fasta, write_fastq
+from biokanga.sim.simreads import random_genome, simulate_reads
 
 
 def test_disnp_cli(tmp_path):

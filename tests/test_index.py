@@ -1,10 +1,10 @@
 import numpy as np
 import pytest
 
-from biokanga_tpu.index.build import build_index, load_index, save_index
-from biokanga_tpu.index.device import to_device
-from biokanga_tpu.ops.lookup import pack_read_kmers, seed_range_lookup
-from biokanga_tpu.sim.simreads import random_genome
+from biokanga.index.build import build_index, load_index, save_index
+from biokanga.index.device import to_device
+from biokanga.ops.lookup import pack_read_kmers, seed_range_lookup
+from biokanga.sim.simreads import random_genome
 
 
 def brute_occurrences(codes: np.ndarray, core: np.ndarray) -> set[int]:

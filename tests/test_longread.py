@@ -5,13 +5,13 @@ reference's 256 Kbp envelope semantics (commdefs.h:158-161) and the
 """
 import numpy as np
 
-from biokanga_tpu.align.longread import LongReadAligner
-from biokanga_tpu.align.params import AlignParams
-from biokanga_tpu.align.pipeline import AlignEngine
-from biokanga_tpu.index.build import build_index
-from biokanga_tpu.index.device import to_device
-from biokanga_tpu.seq.encode import revcomp
-from biokanga_tpu.sim.simreads import random_genome
+from biokanga.align.longread import LongReadAligner
+from biokanga.align.params import AlignParams
+from biokanga.align.pipeline import AlignEngine
+from biokanga.index.build import build_index
+from biokanga.index.device import to_device
+from biokanga.seq.encode import revcomp
+from biokanga.sim.simreads import random_genome
 
 
 def _engine(n=2_000_000, seed=5):

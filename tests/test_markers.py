@@ -3,12 +3,12 @@ markerseqs flank extraction, uhamming CLI."""
 import numpy as np
 import pytest
 
-from biokanga_tpu.cli import main
-from biokanga_tpu.index.build import build_index
-from biokanga_tpu.seq.encode import codes_to_ascii
-from biokanga_tpu.seq.fasta import read_seqs, write_fasta
-from biokanga_tpu.sim.simreads import random_genome
-from biokanga_tpu.tools.markers import kmer_markers
+from biokanga.cli import main
+from biokanga.index.build import build_index
+from biokanga.seq.encode import codes_to_ascii
+from biokanga.seq.fasta import read_seqs, write_fasta
+from biokanga.sim.simreads import random_genome
+from biokanga.tools.markers import kmer_markers
 
 
 def test_kmarkers_bruteforce():
@@ -43,7 +43,7 @@ def test_kmarkers_bruteforce():
 
 def test_snpmarkers_and_markerseqs(tmp_path):
     # synthesise two cultivar SNP CSVs via the real writer
-    from biokanga_tpu.align.snp import SNPCall, write_snps_csv
+    from biokanga.align.snp import SNPCall, write_snps_csv
 
     def mkcall(chrom, loci, ref, alt, cov):
         cnts = np.zeros(4, np.int64)
@@ -100,7 +100,7 @@ def test_uhamming_cli(tmp_path):
     ocsv = str(tmp_path / "h.csv")
     assert main(["uhamming", "-m", "3", "-I", o1, "-I", o2, "-o", om,
                  "-O", ocsv]) == 0
-    from biokanga_tpu.tools.uhamming import load_hmg
+    from biokanga.tools.uhamming import load_hmg
 
     hf, _, _, _ = load_hmg(o_full)
     hm, _, _, _ = load_hmg(om)

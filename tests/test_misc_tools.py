@@ -1,11 +1,11 @@
 """quickcount / gensampler / ufilter / loci2dist / kangahrdx / kangaradseq."""
 import numpy as np
 
-from biokanga_tpu.cli import main
-from biokanga_tpu.seq.encode import ascii_to_codes
-from biokanga_tpu.seq.fasta import read_seqs, write_fasta
-from biokanga_tpu.sim.simreads import random_genome
-from biokanga_tpu.tools.misc_tools import (
+from biokanga.cli import main
+from biokanga.seq.encode import ascii_to_codes
+from biokanga.seq.fasta import read_seqs, write_fasta
+from biokanga.sim.simreads import random_genome
+from biokanga.tools.misc_tools import (
     RADSEQ_SITES, homozy_reduce, radseq_demux,
 )
 
@@ -126,7 +126,7 @@ def test_kangahrdx_cli(tmp_path):
 
 
 def test_kangapr_sampling(tmp_path):
-    from biokanga_tpu.cli import main
+    from biokanga.cli import main
 
     p1 = tmp_path / "p1.fq"
     p2 = tmp_path / "p2.fq"

@@ -2,18 +2,18 @@
 import numpy as np
 import pytest
 
-from biokanga_tpu.align.multihit import (
+from biokanga.align.multihit import (
     adaptive_trim,
     assign_multihits,
     chimeric_pass,
 )
-from biokanga_tpu.align.params import AlignParams
-from biokanga_tpu.align.pipeline import AlignEngine
-from biokanga_tpu.cli import main
-from biokanga_tpu.index.build import build_index
-from biokanga_tpu.index.device import to_device
-from biokanga_tpu.seq.fasta import write_fasta
-from biokanga_tpu.sim.simreads import SimReadTruth, random_genome
+from biokanga.align.params import AlignParams
+from biokanga.align.pipeline import AlignEngine
+from biokanga.cli import main
+from biokanga.index.build import build_index
+from biokanga.index.device import to_device
+from biokanga.seq.fasta import write_fasta
+from biokanga.sim.simreads import SimReadTruth, random_genome
 
 
 def test_assign_multihits_prefers_supported_locus():

@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from biokanga_tpu.index.build import pack_keys
-from biokanga_tpu.utils.native import (
+from biokanga.index.build import pack_keys
+from biokanga.utils.native import (
     build_sorted_keys,
     get_lib,
     parse_fastq_native,
@@ -50,8 +50,8 @@ def test_parse_fastq_native():
 def test_index_uses_native_and_stays_correct():
     """The full index built through the native sort still answers range
     queries exactly (reuses the brute-force oracle)."""
-    from biokanga_tpu.index.build import build_index
-    from biokanga_tpu.sim.simreads import random_genome
+    from biokanga.index.build import build_index
+    from biokanga.sim.simreads import random_genome
 
     seqs = random_genome([("c", 30000)], seed=17)
     idx = build_index(seqs, lut_bases=8)
@@ -62,7 +62,7 @@ def test_index_uses_native_and_stays_correct():
     # spot-check: every sampled position's 16-mer is findable via its key
     g = idx.codes
     rng = np.random.default_rng(1)
-    from biokanga_tpu.seq.encode import pack_kmers_u32
+    from biokanga.seq.encode import pack_kmers_u32
 
     for p in rng.integers(0, 29000, size=50):
         k = pack_kmers_u32(g, 16, np.array([p]))[0]

@@ -3,9 +3,9 @@ the true sequence."""
 import numpy as np
 import pytest
 
-from biokanga_tpu.pacbio.ecreads import ECParams, ec_reads
-from biokanga_tpu.seq.encode import revcomp
-from biokanga_tpu.sim.simreads import random_genome
+from biokanga.pacbio.ecreads import ECParams, ec_reads
+from biokanga.seq.encode import revcomp
+from biokanga.sim.simreads import random_genome
 
 
 def noisy_copy(rng, seq, sub=0.03, ins=0.01, dele=0.01):
@@ -98,3 +98,24 @@ def test_ec_mesh_sw_dispatch():
     assert len(got) == len(want)
     for w, g in zip(want, got):
         assert np.array_equal(w, g)
+
+
+@pytest.mark.parametrize("B,La,N,seed", [(40, 64, 7, 0), (9, 33, 3, 1),
+                                         (128, 16, 50, 2)])
+def test_vote_deltas_match_integer_reference(B, La, N, seed):
+    """The one-hot vote products are exact: bit-equal to an integer
+    scatter-add, including rejected pairs and padding rows (pid -1)."""
+    import jax.numpy as jnp
+
+    from biokanga.pacbio.ecreads import _vote_deltas, vote_deltas_reference
+
+    rng = np.random.default_rng(seed)
+    out = jnp.asarray(rng.integers(0, 7, (B, La)).astype(np.int8))
+    insc = jnp.asarray(rng.integers(0, 300, (B, La + 1)).astype(np.int32))
+    insb = jnp.asarray(rng.integers(0, 90, (B, La + 1, 4)).astype(np.int32))
+    pids = jnp.asarray(rng.integers(-1, N, B).astype(np.int32))
+    ok = jnp.asarray(rng.random(B) < 0.7) & (pids >= 0)
+    got = _vote_deltas(out, insc, insb, pids, ok, N)
+    want = vote_deltas_reference(out, insc, insb, pids, ok, N)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))

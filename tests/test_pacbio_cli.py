@@ -1,9 +1,9 @@
 """pacbiokanga-family CLI: ecreads -> contigs pipeline + kmerdist."""
 import numpy as np
 
-from biokanga_tpu.cli import main
-from biokanga_tpu.seq.fasta import read_seqs, write_fasta
-from biokanga_tpu.sim.simreads import random_genome
+from biokanga.cli import main
+from biokanga.seq.fasta import read_seqs, write_fasta
+from biokanga.sim.simreads import random_genome
 
 
 def test_ecreads_then_contigs(tmp_path):

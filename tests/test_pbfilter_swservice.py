@@ -1,13 +1,13 @@
 """pbfilter (SMRTbell removal) + swservice CLI (sharded SW job batch)."""
 import numpy as np
 
-from biokanga_tpu.cli import main
-from biokanga_tpu.pacbio.pbfilter import (
+from biokanga.cli import main
+from biokanga.pacbio.pbfilter import (
     PBFilterParams, SMRTBELL, find_adapter_hits, pb_filter,
 )
-from biokanga_tpu.seq.encode import ascii_to_codes
-from biokanga_tpu.seq.fasta import read_seqs, write_fasta
-from biokanga_tpu.sim.simreads import random_genome
+from biokanga.seq.encode import ascii_to_codes
+from biokanga.seq.fasta import read_seqs, write_fasta
+from biokanga.sim.simreads import random_genome
 
 
 def _mk_read_with_adapter(rng, flank=800, mm=0):

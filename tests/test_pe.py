@@ -2,12 +2,12 @@
 import numpy as np
 import pytest
 
-from biokanga_tpu.align.params import AlignParams
-from biokanga_tpu.align.pe import PEAligner, PEParams, classify_pairs
-from biokanga_tpu.align.pipeline import AlignEngine
-from biokanga_tpu.index.build import build_index
-from biokanga_tpu.index.device import to_device
-from biokanga_tpu.sim.simreads import random_genome, simulate_reads
+from biokanga.align.params import AlignParams
+from biokanga.align.pe import PEAligner, PEParams, classify_pairs
+from biokanga.align.pipeline import AlignEngine
+from biokanga.index.build import build_index
+from biokanga.index.device import to_device
+from biokanga.sim.simreads import random_genome, simulate_reads
 
 
 @pytest.fixture(scope="module")
@@ -111,12 +111,12 @@ def test_orphan_rescue_recovers_mild_corruption(pe_setup):
 def test_launch_finish_equals_align_pairs():
     import numpy as np
 
-    from biokanga_tpu.align.params import AlignParams
-    from biokanga_tpu.align.pipeline import AlignEngine
-    from biokanga_tpu.align.pe import PEAligner, PEParams
-    from biokanga_tpu.index.build import build_index
-    from biokanga_tpu.index.device import to_device
-    from biokanga_tpu.sim.simreads import random_genome, simulate_reads
+    from biokanga.align.params import AlignParams
+    from biokanga.align.pipeline import AlignEngine
+    from biokanga.align.pe import PEAligner, PEParams
+    from biokanga.index.build import build_index
+    from biokanga.index.device import to_device
+    from biokanga.sim.simreads import random_genome, simulate_reads
 
     seqs = random_genome([("c", 30000)], seed=3)
     _, reads, _ = simulate_reads(seqs, 128, read_len=100, sub_rate=0.01,

@@ -1,9 +1,9 @@
 """PE end-to-end through the CLI: simreads --pe -> align -u -> SAM flags."""
 import numpy as np
 
-from biokanga_tpu.cli import main
-from biokanga_tpu.seq.fasta import write_fasta
-from biokanga_tpu.sim.simreads import SimReadTruth, random_genome
+from biokanga.cli import main
+from biokanga.seq.fasta import write_fasta
+from biokanga.sim.simreads import SimReadTruth, random_genome
 
 
 def test_cli_pe(tmp_path):

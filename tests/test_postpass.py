@@ -1,10 +1,10 @@
 """PCR dedupe / priority regions / PE insert distribution tests."""
 import numpy as np
 
-from biokanga_tpu.align.postpass import reduce_pcr_duplicates
-from biokanga_tpu.cli import main
-from biokanga_tpu.seq.fasta import write_fasta, write_fastq
-from biokanga_tpu.sim.simreads import random_genome, simulate_reads
+from biokanga.align.postpass import reduce_pcr_duplicates
+from biokanga.cli import main
+from biokanga.seq.fasta import write_fasta, write_fastq
+from biokanga.sim.simreads import random_genome, simulate_reads
 
 
 def test_reduce_pcr_duplicates():

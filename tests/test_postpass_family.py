@@ -3,7 +3,7 @@ PCR5PrimerCorrect, orphan splice/microInDel removal, loci constraints —
 as vectorised array passes."""
 import numpy as np
 
-from biokanga_tpu.align.postpass import (
+from biokanga.align.postpass import (
     SPLICE_MARKER,
     ConstraintLoci,
     auto_trim_flanks,
@@ -13,7 +13,7 @@ from biokanga_tpu.align.postpass import (
     remove_orphan_microindels,
     remove_orphan_splice_juncts,
 )
-from biokanga_tpu.seq.encode import revcomp
+from biokanga.seq.encode import revcomp
 
 
 def _mkres(n, loci, rc=None, mm=None):

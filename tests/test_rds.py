@@ -2,13 +2,13 @@
 CLI, and aligner .rds input (SE + PE-interleaved)."""
 import numpy as np
 
-from biokanga_tpu.cli import main
-from biokanga_tpu.seq.fasta import write_fasta, write_fastq
-from biokanga_tpu.seq.rds import (
+from biokanga.cli import main
+from biokanga.seq.fasta import write_fasta, write_fastq
+from biokanga.seq.rds import (
     FLAG_PE2, RDSFile, is_rds, pack_2bit, read_rds_blocks, rds_info,
     unpack_2bit, write_rds,
 )
-from biokanga_tpu.sim.simreads import random_genome, simulate_reads
+from biokanga.sim.simreads import random_genome, simulate_reads
 
 
 def test_pack_unpack_roundtrip():
@@ -79,7 +79,7 @@ def test_align_accepts_rds_se_and_pe(tmp_path):
     pe_recs = []
     for i in range(16):
         s = 200 + i * 600
-        from biokanga_tpu.seq.encode import revcomp
+        from biokanga.seq.encode import revcomp
         pe_recs.append((f"p{i}/1", g[s: s + 80]))
         pe_recs.append((f"p{i}/2", revcomp(g[s + 220: s + 300])))
     perds = str(tmp_path / "pe.rds.npz")

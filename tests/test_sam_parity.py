@@ -7,7 +7,7 @@ is absent these tests skip rather than fail so CI stays runnable on a
 bare checkout.
 
 Pipeline per BASELINE.md: reference `simreads` generates ground-truth
-reads -> reference `index`+`align` produce the truth SAM -> biokanga_tpu
+reads -> reference `index`+`align` produce the truth SAM -> biokanga
 aligns the same reads -> scripts/sam_parity.py-style comparison of
 (chrom, pos, strand, CIGAR, mapped-flag) per QNAME.
 
@@ -35,7 +35,7 @@ sys.path.insert(0, os.path.join(REPO, "scripts"))
 
 
 def _write_genome(path, n=500_000, seed=11):
-    from biokanga_tpu.sim.simreads import random_genome
+    from biokanga.sim.simreads import random_genome
 
     seqs = random_genome([("chr1", n)], seed=seed)
     with open(path, "w") as f:
@@ -54,15 +54,15 @@ def _run(args, cwd):
 
 
 def _our_align(tmp, inreads, out, pair=None):
-    from biokanga_tpu.cli import main as cli_main
+    from biokanga.cli import main as cli_main
 
     argv = ["align", "-i", os.path.join(tmp, inreads), "-I",
-            os.path.join(tmp, "g_tpu.npz"), "-o", os.path.join(tmp, out)]
+            os.path.join(tmp, "g_ours.npz"), "-o", os.path.join(tmp, out)]
     if pair:
         argv += ["-u", os.path.join(tmp, pair)]
     old = sys.argv
     try:
-        sys.argv = ["biokanga_tpu"] + argv
+        sys.argv = ["biokanga"] + argv
         assert cli_main(argv) == 0
     finally:
         sys.argv = old
@@ -85,10 +85,10 @@ def workdir(tmp_path_factory):
     _write_genome(os.path.join(tmp, "g.fa"))
     _run([REF_BIN, "index", "-i", "g.fa", "-o", "g.sfx", "-r", "t",
           "-F", "idx.log"], tmp)
-    from biokanga_tpu.cli import main as cli_main
+    from biokanga.cli import main as cli_main
 
     assert cli_main(["index", "-i", os.path.join(tmp, "g.fa"), "-o",
-                     os.path.join(tmp, "g_tpu.npz")]) == 0
+                     os.path.join(tmp, "g_ours.npz")]) == 0
     return tmp
 
 

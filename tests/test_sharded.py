@@ -9,13 +9,13 @@ import jax
 import numpy as np
 import pytest
 
-from biokanga_tpu.align.params import AlignParams
-from biokanga_tpu.align.pipeline import AlignEngine, pad_rows
-from biokanga_tpu.index.build import build_index
-from biokanga_tpu.index.chunked import build_chunked_index
-from biokanga_tpu.index.device import to_device
-from biokanga_tpu.parallel.sharded import ShardedAligner, make_mesh
-from biokanga_tpu.sim.simreads import random_genome, simulate_reads
+from biokanga.align.params import AlignParams
+from biokanga.align.pipeline import AlignEngine, pad_rows
+from biokanga.index.build import build_index
+from biokanga.index.chunked import build_chunked_index
+from biokanga.index.device import to_device
+from biokanga.parallel.sharded import ShardedAligner, make_mesh
+from biokanga.sim.simreads import random_genome, simulate_reads
 
 
 def _genome(seed=31):
@@ -69,7 +69,7 @@ def test_sharded_matches_single_exact(n_dp, n_sp):
 
 def test_sharded_extended_indel_splice():
     """-a/-A fall-through on the mesh == single-index ExtendedAligner."""
-    from biokanga_tpu.align.pipeline import ExtendedAligner
+    from biokanga.align.pipeline import ExtendedAligner
 
     seqs = random_genome([("c1", 60000)], seed=17)
     s = seqs[0][1]
@@ -108,3 +108,27 @@ def test_sharded_extended_indel_splice():
                                   single["cigar_op"][u])
     np.testing.assert_array_equal(out["op_len"][u], single["op_len"][u])
     assert single["unique"][:64].sum() > 60
+
+
+@pytest.mark.parametrize("n_mm", [2, 9])
+def test_sharded_matches_chunked_beyond_exactness_bound(n_mm):
+    """ShardedAligner and ChunkedAligner give identical results even for
+    reads past the pigeonhole bound (9 mismatches), where the result
+    depends on the core length: both derive the core ladder from the
+    whole genome's length (here a 3 Gbp-shaped index), not a chunk's."""
+    from biokanga.parallel.chunked import ChunkedAligner
+    from biokanga.sim.multichunk import chunked_problem
+
+    prob = chunked_problem(4, 200_000, 512)
+    reads = prob.reads.copy()
+    rng = np.random.default_rng(n_mm)
+    for i in range(len(reads)):
+        pos = rng.choice(100, n_mm, replace=False)
+        reads[i, pos] = (reads[i, pos] + rng.integers(1, 4, n_mm)) % 4
+    params = AlignParams()
+    out_s = ShardedAligner(make_mesh(1, 4, jax.devices()[:4]), prob.ci,
+                           params).align(reads, prob.lengths)
+    out_c = ChunkedAligner(prob.ci, params).align(reads, prob.lengths)
+    for k in ("unique", "locus", "best_mm", "next_mm", "inst"):
+        np.testing.assert_array_equal(np.asarray(out_s[k]),
+                                      np.asarray(out_c[k]), err_msg=k)

@@ -3,20 +3,20 @@ per-chunk local planes to global coordinates)."""
 import jax
 import numpy as np
 
-from biokanga_tpu.align.params import AlignParams
-from biokanga_tpu.align.pipeline import AlignEngine
-from biokanga_tpu.align.snp import PileupAccumulator
-from biokanga_tpu.index.build import build_index
-from biokanga_tpu.index.chunked import build_chunked_index
-from biokanga_tpu.index.device import to_device
-from biokanga_tpu.parallel.sharded import (
+from biokanga.align.params import AlignParams
+from biokanga.align.pipeline import AlignEngine
+from biokanga.align.snp import PileupAccumulator
+from biokanga.index.build import build_index
+from biokanga.index.chunked import build_chunked_index
+from biokanga.index.device import to_device
+from biokanga.parallel.sharded import (
     ShardedAligner,
     build_sharded_pileup_fn,
     combine_pileup_planes,
     make_mesh,
 )
-from biokanga_tpu.seq.encode import revcomp
-from biokanga_tpu.sim.simreads import random_genome, simulate_reads
+from biokanga.seq.encode import revcomp
+from biokanga.sim.simreads import random_genome, simulate_reads
 
 
 def test_sharded_pileup_matches_single():

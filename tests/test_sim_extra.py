@@ -1,12 +1,12 @@
 """rnafragsim / usimdiffexpr / kangarg / findapproxmatches."""
 import numpy as np
 
-from biokanga_tpu.cli import main
-from biokanga_tpu.ops.shortmatch import find_short_matches
-from biokanga_tpu.seq.encode import revcomp
-from biokanga_tpu.seq.fasta import read_seqs, write_fasta
-from biokanga_tpu.sim.extra import klet_shuffle, rna_frag_sim, sim_diff_expr
-from biokanga_tpu.sim.simreads import random_genome
+from biokanga.cli import main
+from biokanga.ops.shortmatch import find_short_matches
+from biokanga.seq.encode import revcomp
+from biokanga.seq.fasta import read_seqs, write_fasta
+from biokanga.sim.extra import klet_shuffle, rna_frag_sim, sim_diff_expr
+from biokanga.sim.simreads import random_genome
 
 
 def _kmer_counts(c, k):

@@ -4,16 +4,16 @@ paths (VERDICT round-1 item 5; reference SimReads.cpp SimInDels /
 SimSeqErrors / simulated-SNP loop :2437)."""
 import numpy as np
 
-from biokanga_tpu.align.params import AlignParams
-from biokanga_tpu.align.pipeline import (
+from biokanga.align.params import AlignParams
+from biokanga.align.pipeline import (
     AlignEngine,
     ExtendedAligner,
     cigar_for,
     pad_rows,
 )
-from biokanga_tpu.index.build import build_index
-from biokanga_tpu.index.device import to_device
-from biokanga_tpu.sim.simreads import (
+from biokanga.index.build import build_index
+from biokanga.index.device import to_device
+from biokanga.sim.simreads import (
     induce_seq_errors,
     plant_snps,
     random_genome,
@@ -141,7 +141,7 @@ def test_snp_truth_e2e():
     """Plant SNPs -> simulate reads from the mutated genome -> align vs
     the ORIGINAL genome -> pileup -> call_snps recovers the planted loci
     (the BASELINE SNP-calling config with simulated truth)."""
-    from biokanga_tpu.align.snp import PileupAccumulator, SNPParams, call_snps
+    from biokanga.align.snp import PileupAccumulator, SNPParams, call_snps
 
     seqs = random_genome([("c1", 20000)], seed=21)
     mut, snps = plant_snps(seqs, snp_rate_per_mbp=1000, seed=6)

@@ -2,18 +2,18 @@
 import numpy as np
 import pytest
 
-from biokanga_tpu.align.params import AlignParams
-from biokanga_tpu.align.pipeline import AlignEngine
-from biokanga_tpu.align.snp import (
+from biokanga.align.params import AlignParams
+from biokanga.align.pipeline import AlignEngine
+from biokanga.align.snp import (
     PileupAccumulator,
     SNPParams,
     call_snps,
     write_snps_csv,
     write_snps_vcf,
 )
-from biokanga_tpu.index.build import build_index
-from biokanga_tpu.index.device import to_device
-from biokanga_tpu.sim.simreads import random_genome, simulate_reads
+from biokanga.index.build import build_index
+from biokanga.index.device import to_device
+from biokanga.sim.simreads import random_genome, simulate_reads
 
 
 @pytest.fixture(scope="module")
@@ -93,7 +93,7 @@ def test_no_snps_on_clean_reads(snp_setup):
 def test_snp_centroids_accumulation():
     import numpy as np
 
-    from biokanga_tpu.align.snp import (
+    from biokanga.align.snp import (
         SNPCall,
         snp_centroids,
         write_snp_centroids_csv,

@@ -2,12 +2,12 @@
 import numpy as np
 import pytest
 
-from biokanga_tpu.align.params import AlignParams
-from biokanga_tpu.align.pipeline import AlignEngine, ExtendedAligner, cigar_for
-from biokanga_tpu.index.build import build_index
-from biokanga_tpu.index.device import to_device
-from biokanga_tpu.seq.encode import revcomp
-from biokanga_tpu.sim.simreads import random_genome
+from biokanga.align.params import AlignParams
+from biokanga.align.pipeline import AlignEngine, ExtendedAligner, cigar_for
+from biokanga.index.build import build_index
+from biokanga.index.device import to_device
+from biokanga.seq.encode import revcomp
+from biokanga.sim.simreads import random_genome
 
 
 @pytest.fixture(scope="module")

@@ -3,8 +3,8 @@ import sqlite3
 
 import numpy as np
 
-from biokanga_tpu.cli import main
-from biokanga_tpu.utils.sqlite_summaries import SQLiteSummaries
+from biokanga.cli import main
+from biokanga.utils.sqlite_summaries import SQLiteSummaries
 
 
 def test_summaries_roundtrip(tmp_path):
@@ -32,7 +32,7 @@ def test_summaries_roundtrip(tmp_path):
 
 def test_snps2sqlite_and_index_q(tmp_path):
     # produce a SNP CSV through the writer, load it
-    from biokanga_tpu.align.snp import SNPCall, write_snps_csv
+    from biokanga.align.snp import SNPCall, write_snps_csv
 
     cnts = np.array([3, 0, 9, 0], np.int64)
     calls = [
@@ -54,8 +54,8 @@ def test_snps2sqlite_and_index_q(tmp_path):
     assert con.execute("SELECT SeqName FROM TblSeqs").fetchone()[0] == "chr1"
 
     # -q experiment logging through the index subcommand
-    from biokanga_tpu.seq.fasta import write_fasta
-    from biokanga_tpu.sim.simreads import random_genome
+    from biokanga.seq.fasta import write_fasta
+    from biokanga.sim.simreads import random_genome
 
     fa = str(tmp_path / "g.fa")
     write_fasta(fa, random_genome([("c", 2000)], seed=2))

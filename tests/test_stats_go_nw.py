@@ -3,8 +3,8 @@ Needleman-Wunsch vs a scalar Gotoh oracle."""
 import numpy as np
 import pytest
 
-from biokanga_tpu.ops.nw import nw_score_batch, nw_score_numpy
-from biokanga_tpu.utils.stats import (benjamini_hochberg, binomial,
+from biokanga.ops.nw import nw_score_batch, nw_score_numpy
+from biokanga.utils.stats import (benjamini_hochberg, binomial,
                                       calc_chisqr, calc_nck, chisqr_pval,
                                       fishers_exact_test, prob_k_eql_k)
 
@@ -52,7 +52,7 @@ def _mini_go(tmp_path):
 
 
 def test_go_enrichment(tmp_path):
-    from biokanga_tpu.tools.go_tools import (ancestor_closure,
+    from biokanga.tools.go_tools import (ancestor_closure,
                                              go_enrichment, parse_gaf,
                                              parse_obo)
 
@@ -76,7 +76,7 @@ def test_go_enrichment(tmp_path):
 
 
 def test_go_cli(tmp_path):
-    from biokanga_tpu.cli import main
+    from biokanga.cli import main
 
     obo, gaf = _mini_go(tmp_path)
     study = tmp_path / "study.txt"

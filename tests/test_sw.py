@@ -3,12 +3,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from biokanga_tpu.ops.sw import (
+from biokanga.ops.sw import (
     banded_sw_batch,
     sw_score_numpy,
     traceback,
 )
-from biokanga_tpu.seq.encode import revcomp
+from biokanga.seq.encode import revcomp
 
 
 def _run(a_list, b_list, W, diag=None):

@@ -2,8 +2,8 @@
 import jax
 import numpy as np
 
-from biokanga_tpu.ops.sw import sw_score_numpy
-from biokanga_tpu.parallel.swservice import SWJobBatch, make_sw_mesh, run_sw_jobs
+from biokanga.ops.sw import sw_score_numpy
+from biokanga.parallel.swservice import SWJobBatch, make_sw_mesh, run_sw_jobs
 
 
 def test_sharded_sw_matches_oracle():

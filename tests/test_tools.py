@@ -3,10 +3,10 @@ pseudogenome, filter, ngsqc, mergeoverlaps, ssr, filtchrom, remaploci)."""
 import numpy as np
 import pytest
 
-from biokanga_tpu.cli import main
-from biokanga_tpu.seq.encode import ascii_to_codes, codes_to_ascii, revcomp
-from biokanga_tpu.seq.fasta import read_seqs, write_fasta, write_fastq
-from biokanga_tpu.sim.simreads import random_genome
+from biokanga.cli import main
+from biokanga.seq.encode import ascii_to_codes, codes_to_ascii, revcomp
+from biokanga.seq.fasta import read_seqs, write_fasta, write_fastq
+from biokanga.sim.simreads import random_genome
 
 
 def test_fasta2nxx(tmp_path):
@@ -14,7 +14,7 @@ def test_fasta2nxx(tmp_path):
             ("c", np.full(600, 2, np.int8))]
     fa = str(tmp_path / "x.fa")
     write_fasta(fa, seqs)
-    from biokanga_tpu.tools.fasta_tools import fasta_nxx
+    from biokanga.tools.fasta_tools import fasta_nxx
 
     st = fasta_nxx(fa)
     assert st.num_seqs == 3 and st.total_bp == 1000

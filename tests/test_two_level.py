@@ -7,17 +7,17 @@ keeps has provably identical best/locus/inst/uniqueness to the full pass,
 and every other read is rerun through the classic pass.  This regression
 test drives both engines over a stress mix — clean reads, heavy
 substitutions, N bases, and planted multi-hit repeats — and requires
-field-for-field equality (the TPU analogue of the reference's progressive
+field-for-field equality (the batched analogue of the reference's progressive
 sensitivity ladder, libbiokanga/SfxArrayV2.cpp:7663-7760).
 """
 import numpy as np
 import pytest
 
-from biokanga_tpu.align.params import AlignParams
-from biokanga_tpu.align.pipeline import AlignEngine
-from biokanga_tpu.index.build import build_index
-from biokanga_tpu.index.device import to_device
-from biokanga_tpu.sim.simreads import random_genome, simulate_reads
+from biokanga.align.params import AlignParams
+from biokanga.align.pipeline import AlignEngine
+from biokanga.index.build import build_index
+from biokanga.index.device import to_device
+from biokanga.sim.simreads import random_genome, simulate_reads
 
 
 @pytest.fixture(scope="module")

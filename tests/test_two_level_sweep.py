@@ -3,11 +3,11 @@ vs the per-chunk classic path — field equality after the exact merge.
 """
 import numpy as np
 
-from biokanga_tpu.align.params import AlignParams
-from biokanga_tpu.align.pipeline import pad_rows
-from biokanga_tpu.index.device_build import DeviceBuildChunkedAligner
-from biokanga_tpu.parallel.chunked import two_level_chunk_sweep
-from biokanga_tpu.sim.simreads import random_genome, simulate_reads
+from biokanga.align.params import AlignParams
+from biokanga.align.pipeline import pad_rows
+from biokanga.index.device_build import DeviceBuildChunkedAligner
+from biokanga.parallel.chunked import two_level_chunk_sweep
+from biokanga.sim.simreads import random_genome, simulate_reads
 
 FIELDS = ("unique", "any_hit", "best_mm", "next_mm", "inst", "locus",
           "is_rc")
@@ -37,7 +37,7 @@ def _setup(sub_rate, seed, heavy_frac=0.0):
 
 def _classic_merged(ca, blocks):
     """Reference result: classic engine per chunk + exact merge."""
-    from biokanga_tpu.parallel.chunked import merge_chunk_results
+    from biokanga.parallel.chunked import merge_chunk_results
 
     out = []
     for reads, lengths in blocks:

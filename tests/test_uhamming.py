@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from biokanga_tpu.seq.encode import revcomp
-from biokanga_tpu.tools.uhamming import (
+from biokanga.seq.encode import revcomp
+from biokanga.tools.uhamming import (
     H_INVALID,
     hamming_sweep,
     merge_partials,

@@ -1,9 +1,9 @@
 """genzygosity / pescaffold / alignsbs / synthetic index tests."""
 import numpy as np
 
-from biokanga_tpu.cli import main
-from biokanga_tpu.index.build import build_index
-from biokanga_tpu.tools.zygosity import aligns_bootstrap, zygosity_matrix
+from biokanga.cli import main
+from biokanga.index.build import build_index
+from biokanga.tools.zygosity import aligns_bootstrap, zygosity_matrix
 
 
 def test_zygosity_matrix_shared_segment():
@@ -59,7 +59,7 @@ def test_synthetic_index_mode(tmp_path):
     out = str(tmp_path / "synth.idx.npz")
     assert main(["index", "-m", "2", "-s", "1", "-o", out,
                  "--lut-bases", "8"]) == 0
-    from biokanga_tpu.index.build import load_index
+    from biokanga.index.build import load_index
 
     idx = load_index(out)
     assert idx.total_len == 1_000_000
